@@ -30,7 +30,9 @@ def main() -> int:
     n_bytes = int(n_gb * (1 << 30))
     import bench as bench_mod
 
-    src = f"/tmp/mhc_multigb_{n_gb}g.bin"
+    work = os.path.join(REPO, ".cache", "bench")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, f"multigb_{n_gb}g.bin")
     if not (os.path.exists(src) and os.path.getsize(src) == n_bytes):
         with open(src, "wb") as f:
             written = 0
@@ -43,10 +45,10 @@ def main() -> int:
                 seed += 1
         print(f"[multigb] corpus written: {n_bytes} bytes", flush=True)
 
-    from mhc_tpu import api
+    from mhc import api
 
-    dst = "/tmp/mhc_multigb.mhc"
-    back = "/tmp/mhc_multigb.out"
+    dst = os.path.join(work, "multigb.mhc")
+    back = os.path.join(work, "multigb.out")
     t0 = time.perf_counter()
     stats = api.compress_file(src, dst, mode="markov",
                               segment_size=seg_mb << 20)

@@ -1,4 +1,4 @@
-"""Compression-ratio results table: TPU framework vs C++ oracle.
+"""Compression-ratio results table: mhc vs the C++ oracle.
 
 The reference repo's main artifact besides the code is a README results
 table over a small corpus (SURVEY.md §1/§2b). This reproduces that
@@ -21,8 +21,7 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-if os.environ.get("JAX_PLATFORMS", "") != "tpu":
-    jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
@@ -59,7 +58,7 @@ def oracle_sizes(data: bytes) -> dict:
 
 
 def main() -> int:
-    from mhc_tpu import api
+    from mhc import api
 
     rows = []
     for name, data in corpora().items():
@@ -75,10 +74,10 @@ def main() -> int:
         print(row)
 
     lines = [
-        "# RESULTS — compressed sizes, TPU framework vs C++ reference oracle",
+        "# RESULTS — compressed sizes, mhc vs C++ reference oracle",
         "",
         "Roundtrip bit-exactness asserted for every cell. `vs` = ours /",
-        "oracle (< 1.0 means the TPU container is smaller). Generated by",
+        "oracle (< 1.0 means the mhc container is smaller). Generated by",
         "`bench/ratios.py`; deterministic corpora.",
         "",
         "All BASELINE.json benchmark configs (order-0 on 1 MB text; markov",
@@ -87,7 +86,7 @@ def main() -> int:
         "identical to the oracle's by construction, our lengths-only table",
         "saves only ~117 B, and mixed content makes per-unit stream",
         "lengths high-entropy (a wide packed index) — the cost of the",
-        "block-parallel format the TPU decoder requires.",
+        "block-parallel format the parallel decoder requires.",
         "",
         "| corpus | bytes | order-0 ours | order-0 oracle | vs | markov ours | markov oracle | vs |",
         "|---|---|---|---|---|---|---|---|",

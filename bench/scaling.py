@@ -44,7 +44,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", int(sys.argv[1]))
 sys.path.insert(0, "__REPO__")
 import bench as bench_mod
-from mhc_tpu.parallel import mesh as meshmod, pipeline
+from mhc.parallel import mesh as meshmod, pipeline
 
 nd = int(sys.argv[1])
 n = (int(sys.argv[2]) << 20) * nd            # weak scaling: B0 per device

@@ -44,9 +44,9 @@ def main() -> int:
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     import bench as bench_mod
-    from mhc_tpu import api, container
-    from mhc_tpu.models.entropy import get_model
-    from mhc_tpu.parallel import mesh as meshmod, pipeline
+    from mhc import api, container
+    from mhc.models.entropy import get_model
+    from mhc.parallel import mesh as meshmod, pipeline
 
     model = get_model("markov")
     res = {"mb_per_device": mb, "platform": "cpu-mesh"}

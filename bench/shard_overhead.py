@@ -1,9 +1,7 @@
-"""Sharded-pipeline overhead at chip speed (VERDICT r3 #8 /
-BASELINE.json:10): time compress_sharded/decompress_sharded on a
-1-device TPU mesh vs the unsharded api path on the same corpus. The
-delta bounds the shard_map/collective/gather orchestration cost — the
-only scaling evidence a 1-chip environment allows beyond the CPU-mesh
-dryrun.
+"""Sharded-pipeline overhead (BASELINE.json:10): time
+compress_sharded/decompress_sharded on a 1-device mesh vs the unsharded
+api path on the same corpus. The delta bounds the
+shard_map/collective/gather orchestration cost.
 
     python bench/shard_overhead.py [MB]
 
@@ -26,8 +24,8 @@ def main() -> int:
     import bench as bench_mod
     import jax
 
-    from mhc_tpu import api
-    from mhc_tpu.parallel import mesh as meshmod, pipeline
+    from mhc import api
+    from mhc.parallel import mesh as meshmod, pipeline
 
     data = bench_mod.make_corpus(n_mb << 20)
     res = {"mb": n_mb, "platform": jax.default_backend(),

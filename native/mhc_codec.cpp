@@ -1,7 +1,7 @@
 // mhc_codec — native host-side Markov-Huffman unit codec.
 //
-// The hybrid executor (mhc_tpu/hybrid.py) splits the unit batch between
-// the TPU stream and host threads; this file is the host side. Its
+// The hybrid executor (mhc/hybrid.py) splits the unit batch between
+// the device stream and host threads; this file is the host side. Its
 // output is BIT-IDENTICAL to the device path by construction: identical
 // canonical code assignment (mirrors ops/canonical.py canonical_codes),
 // identical MSB-first bit packing (mirrors ops/bitpack.py), identical
@@ -9,7 +9,7 @@
 //
 // Capability parity: the reference's encoder/decoder drivers and bit I/O
 // are native C++ (SURVEY.md §2 L0/L4, §3.1-3.2); this is their
-// multithreaded host counterpart inside the TPU framework.
+// multithreaded host counterpart inside the framework.
 //
 // Build: make -C native (g++ -O3 -pthread; linked into libmhc_host.so).
 

@@ -1,7 +1,7 @@
-// mhc_host — native host-side runtime for the TPU codec.
+// mhc_host — native host-side runtime for the codec.
 //
 // Capability parity: the reference's runtime is native C++ (file IO, bit
-// IO, driver — SURVEY.md §2b). The TPU framework's device path is
+// IO, driver — SURVEY.md §2b). The framework's device path is
 // JAX/XLA/Pallas; this library is the native counterpart for the
 // host-side data plane: packing/unpacking the container payload
 // (variable-length unit streams <-> fixed-stride word matrices) without

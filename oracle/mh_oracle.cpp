@@ -11,7 +11,7 @@
 // using UNLIMITED-depth Huffman trees (greedy two-least-frequent merge,
 // deterministic (count, symbol) tie-break) and a compact lengths-only
 // canonical header. It serves as the "compressed size <= reference" and
-// "reference-class CPU throughput" baseline for the TPU framework
+// "reference-class CPU throughput" baseline for the framework
 // (BASELINE.md), and as a differential fuzzing partner in tests/.
 //
 // Usage:

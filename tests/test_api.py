@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from mhc_tpu import api, container
+from mhc import api, container
 from tests.corpus import ADVERSARIAL, english_like, mixed_binary
 
 
@@ -101,43 +101,3 @@ def test_chunked_pipeline_container_identical(monkeypatch):
     blob = api.compress(data, mode="markov")
     assert blob == ref["markov"]
     assert api.decompress(blob) == data
-
-
-def test_hist_fallback_consumes_all_chunks():
-    """The Mosaic->matmul histogram fallback must re-accumulate EVERY
-    chunk even when the caller passed a one-shot iterator (round-4
-    review: engine.histogram's zip was partially consumed by the failed
-    try-loop, silently dropping chunk 0 from the fallback counts)."""
-    import warnings
-    import jax.numpy as jnp
-
-    class FakeModel:
-        def __init__(self):
-            self.pallas_calls = 0
-
-        def histogram(self, ud, nvd, method):
-            if method == "pallas":
-                self.pallas_calls += 1
-                if self.pallas_calls == 2:
-                    raise RuntimeError("Mosaic compile: HTTP 500")
-                return jnp.ones((4, 4), jnp.int32)
-            return jnp.full((4, 4), 2, jnp.int32)
-
-    m = FakeModel()
-    devs = zip([0, 1, 2], [0, 1, 2])          # one-shot iterator
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        counts = api._hist_with_fallback(m, devs, "pallas")
-    assert (np.asarray(counts) == 6).all()    # 3 chunks x 2 each
-
-
-def test_hist_fallback_reraises_non_compile_errors():
-    """Real runtime errors (shape bugs, OOM) must NOT be swallowed by
-    the fallback (ADVICE r3)."""
-    class FakeModel:
-        def histogram(self, ud, nvd, method):
-            raise ValueError("shape mismatch (definitely not a kernel "
-                             "build failure)")
-
-    with pytest.raises(ValueError, match="shape mismatch"):
-        api._hist_with_fallback(FakeModel(), [(0, 0)], "pallas")

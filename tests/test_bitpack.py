@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhc_tpu.ops import bitpack, canonical, histogram, huffman
+from mhc.ops import bitpack, canonical, histogram, huffman
 
 
 def _tables_for(data_blocks, n_valid, markov):
@@ -100,7 +100,7 @@ def test_slice_compact_expand_match_gather_variants():
     """Scan-of-dynamic-slices compaction/expansion must be bit-identical
     to the flat-gather implementations."""
     import jax.numpy as jnp
-    from mhc_tpu.ops import bitpack
+    from mhc.ops import bitpack
 
     rng = np.random.default_rng(123)
     R, W = 37, 24

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhc_tpu.ops import canonical, huffman
+from mhc.ops import canonical, huffman
 
 
 def _random_lengths(seed):

@@ -6,7 +6,7 @@ bitstream -> clean error, not garbage output'."""
 import numpy as np
 import pytest
 
-from mhc_tpu import api
+from mhc import api
 from tests.corpus import english_like
 
 

@@ -1,14 +1,10 @@
-"""Round-3 encode-path kernels: dense pack + ragged copy variants.
+"""Ragged copy variants and the step-major lookup.
 
-Differential contracts (all bit-exact, interpret mode so they run on the
-CPU mesh):
-  * pack_blocks_dense == pack_blocks_pallas (words AND bit counts) —
-    the dense kernel assembles each lane's word stream on chip with the
-    reverse group-window and must reproduce the bubble+scatter result
-    exactly, including zero padding past each stream and tail words.
+Differential contracts (all bit-exact):
   * batched-slice / windowed-block expand+compact == the flat-gather
     forms — these feed the engine payload layout, where any divergence
     silently corrupts containers.
+  * the step-major lookup (lookup_cl_sm) == lookup_cl_t.
 """
 
 from __future__ import annotations
@@ -17,45 +13,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mhc_tpu.ops import bitpack
-from mhc_tpu.ops.kernels import encode_pallas
-
-
-def _random_cl(rng, R, n, masked_rows=()):
-    lens = rng.integers(1, 16, size=(R, n)).astype(np.int32)
-    for r, start in masked_rows:
-        lens[r, start:] = 0
-    codes = np.zeros((R, n), np.uint32)
-    for l in range(1, 16):
-        m = lens == l
-        codes[m] = rng.integers(0, 1 << l, size=int(m.sum()))
-    return codes, lens
-
-
-@pytest.mark.parametrize("R,n,seed", [(24, 512, 1), (1024 + 9, 256, 2),
-                                      (8, 2048, 3)])
-def test_dense_pack_matches_bubble(R, n, seed):
-    rng = np.random.default_rng(seed)
-    codes, lens = _random_cl(rng, R, n, masked_rows=[(2, n // 4), (5, 0)])
-    w1, b1 = encode_pallas.pack_blocks_pallas(
-        jnp.asarray(codes), jnp.asarray(lens), interpret=True)
-    w2, b2 = encode_pallas.pack_blocks_dense(
-        jnp.asarray(codes), jnp.asarray(lens), interpret=True)
-    assert np.array_equal(np.asarray(b1), np.asarray(b2))
-    assert np.array_equal(np.asarray(w1), np.asarray(w2))
-
-
-def test_dense_pack_step_major():
-    rng = np.random.default_rng(7)
-    R, n = 40, 512
-    codes, lens = _random_cl(rng, R, n)
-    cl_t = ((lens.astype(np.uint32) << 16) | codes).T.copy()
-    w1, b1 = encode_pallas.pack_blocks_pallas(
-        jnp.asarray(codes), jnp.asarray(lens), interpret=True)
-    w2, b2 = encode_pallas.pack_blocks_dense(
-        jnp.asarray(cl_t), None, step_major=True, interpret=True)
-    assert np.array_equal(np.asarray(b1), np.asarray(b2))
-    assert np.array_equal(np.asarray(w1), np.asarray(w2))
+from mhc.ops import bitpack
 
 
 def _ragged_words(rng, R, W):
@@ -90,37 +48,11 @@ def test_copy_variants_bit_identical(R, W, seed):
         assert np.array_equal(eref, out), fn.__name__
 
 
-def test_lookup_pallas_matches_gather():
-    """The VMEM int8-MXU lookup kernel is bit-identical to the XLA
-    flat-gather lookup_cl_t on a table with every code length in play."""
-    from mhc_tpu import api
-    from mhc_tpu.models.entropy import get_model
-    from mhc_tpu.ops.kernels import lookup_pallas
-
-    rng = np.random.default_rng(11)
-    B, n = 40, 512
-    units = rng.integers(0, 256, (B, n), dtype=np.uint8)
-    units[units < 180] %= 31
-    nv = rng.integers(1, n + 1, B).astype(np.int32)
-    nv[0] = n
-    model = get_model("markov")
-    counts = model.histogram(jnp.asarray(units), jnp.asarray(nv),
-                             method="scatter")
-    lengths = model.lengths_from_counts(
-        np.asarray(counts).astype(np.int64))
-    tables = model.tables_from_lengths(lengths)
-    ref = np.asarray(api.lookup_cl_t(jnp.asarray(units),
-                                     jnp.asarray(nv), tables))
-    out = np.asarray(lookup_pallas.lookup_cl_t_pallas(
-        jnp.asarray(units), jnp.asarray(nv), tables, interpret=True))
-    assert np.array_equal(ref, out)
-
-
 def test_lookup_cl_sm_matches_t():
     """Step-major (pre-transposed) lookup must equal lookup_cl_t on the
-    unit-major batch — the round-4 host-side staging relies on it."""
-    from mhc_tpu import api
-    from mhc_tpu.models.entropy import get_model
+    unit-major batch."""
+    from mhc import api
+    from mhc.models.entropy import get_model
     rng = np.random.default_rng(21)
     units = rng.integers(0, 256, (64, 1024), dtype=np.uint8)
     units[units < 128] %= 23
@@ -137,83 +69,3 @@ def test_lookup_cl_sm_matches_t():
         jnp.asarray(np.ascontiguousarray(units.T)), jnp.asarray(nv),
         tables))
     assert (ref == got).all()
-
-
-def test_lookup_sm_pallas_interpret_matches():
-    """lookup_cl_sm_pallas (interpret) == lookup_cl_sm on step-major
-    input, including the chunk-boundary context carry."""
-    from mhc_tpu import api
-    from mhc_tpu.models.entropy import get_model
-    from mhc_tpu.ops.kernels import lookup_pallas
-    rng = np.random.default_rng(31)
-    n = lookup_pallas.CHUNK_STEPS * 2 + 37   # exercises padding + carry
-    units = rng.integers(0, 64, (lookup_pallas.LANES + 3, n),
-                         dtype=np.uint8)
-    nv = np.full((units.shape[0],), n, np.int32)
-    nv[-1] = 11
-    model = get_model("markov")
-    counts = model.histogram(jnp.asarray(units), jnp.asarray(nv),
-                             method="scatter")
-    tables = model.tables_from_lengths(
-        model.lengths_from_counts(np.asarray(counts)))
-    ut = jnp.asarray(np.ascontiguousarray(units.T))
-    ref = np.asarray(api.lookup_cl_sm(ut, jnp.asarray(nv), tables))
-    got = np.asarray(lookup_pallas.lookup_cl_sm_pallas(
-        ut, jnp.asarray(nv), tables, interpret=True))
-    assert (ref == got).all()
-
-
-@pytest.mark.parametrize("variant", ["rank", "rankbf", "bf16", "w3"])
-def test_lookup_sm_pallas_variants_interpret(variant):
-    """Every selectable lookup-kernel table build (direct bf16, weighted
-    w3, round-5 rank tables) must be bit-identical to the XLA gather
-    plane, including full-range symbols (all 15 code lengths in play)
-    and the chunk-boundary carry."""
-    from mhc_tpu import api
-    from mhc_tpu.models.entropy import get_model
-    from mhc_tpu.ops.kernels import lookup_pallas
-    rng = np.random.default_rng(53)
-    n = lookup_pallas.CHUNK_STEPS + 29
-    units = rng.integers(0, 256, (lookup_pallas.LANES, n),
-                         dtype=np.uint8)
-    units[units < 190] %= 37          # skewed -> deep code lengths
-    nv = np.full((units.shape[0],), n, np.int32)
-    nv[-1] = 7
-    model = get_model("markov")
-    counts = model.histogram(jnp.asarray(units), jnp.asarray(nv),
-                             method="scatter")
-    tables = model.tables_from_lengths(
-        model.lengths_from_counts(np.asarray(counts)))
-    ut = jnp.asarray(np.ascontiguousarray(units.T))
-    ref = np.asarray(api.lookup_cl_sm(ut, jnp.asarray(nv), tables))
-    got = np.asarray(lookup_pallas.lookup_cl_sm_pallas(
-        ut, jnp.asarray(nv), tables, interpret=True, variant=variant))
-    assert (ref == got).all()
-
-
-@pytest.mark.parametrize("variant", ["i8", "bf16", "rank", "rankbf"])
-def test_fused_lookup_pack_matches_split(variant):
-    """pack_blocks_fused_sm (one Mosaic program, no cl plane) must equal
-    lookup_cl_sm + pack_blocks_dense words-and-bits exactly, including
-    masked tails and the cross-chunk context carry (interpret mode)."""
-    from mhc_tpu import api
-    from mhc_tpu.models.entropy import get_model
-    rng = np.random.default_rng(41)
-    n = encode_pallas.CHUNK_STEPS * 2 + 75   # padding + chunk carry
-    B = encode_pallas.LANES + 5
-    units = rng.integers(0, 96, (B, n), dtype=np.uint8)
-    nv = np.full((B,), n, np.int32)
-    nv[-1] = 33
-    model = get_model("markov")
-    counts = model.histogram(jnp.asarray(units), jnp.asarray(nv),
-                             method="scatter")
-    tables = model.tables_from_lengths(
-        model.lengths_from_counts(np.asarray(counts)))
-    ut = jnp.asarray(np.ascontiguousarray(units.T))
-    cl = api.lookup_cl_sm(ut, jnp.asarray(nv), tables)
-    w_ref, b_ref = encode_pallas.pack_blocks_dense(
-        cl, step_major=True, interpret=True)
-    w_f, b_f = encode_pallas.pack_blocks_fused_sm(
-        ut, jnp.asarray(nv), tables, interpret=True, variant=variant)
-    assert np.array_equal(np.asarray(b_ref), np.asarray(b_f))
-    assert np.array_equal(np.asarray(w_ref), np.asarray(w_f))

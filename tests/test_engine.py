@@ -5,7 +5,7 @@ import zlib
 import numpy as np
 import pytest
 
-from mhc_tpu import api, engine
+from mhc import api, engine
 from tests.corpus import english_like, mixed_binary
 
 
@@ -46,7 +46,7 @@ def test_engine_payload_matches_container_payload():
     st = engine.stage(data, mode="markov")
     enc = engine.encode(st)
     blob = api.compress(data, mode="markov")
-    from mhc_tpu import container
+    from mhc import container
     meta = container.parse_container(blob)
     payload = blob[meta.payload_off:meta.payload_off
                    + int(meta.byte_lengths.sum())]

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from mhc_tpu import api
-from mhc_tpu.cli import main as cli_main
+from mhc import api
+from mhc.cli import main as cli_main
 from tests.corpus import english_like, mixed_binary
 
 
@@ -56,7 +56,7 @@ def test_empty_file(tmpfiles):
 
 
 def test_sharded_file_mode(tmpfiles):
-    from mhc_tpu.parallel import mesh as meshmod
+    from mhc.parallel import mesh as meshmod
     mk, tmp = tmpfiles
     data = english_like(300_000, seed=33)
     src = mk("in.bin", data)

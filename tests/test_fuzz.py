@@ -23,7 +23,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from mhc_tpu import api, container
+from mhc import api, container
 from tests.corpus import english_like, mixed_binary
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

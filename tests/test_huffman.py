@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhc_tpu.ops import huffman
+from mhc.ops import huffman
 
 
 def kraft(lens):

@@ -1,13 +1,13 @@
-"""Hybrid host/TPU executor: bit-identity between the native C++ unit
+"""Hybrid host/device executor: bit-identity between the native C++ unit
 codec and the device path, at every split fraction."""
 
 import numpy as np
 import pytest
 
-from mhc_tpu import api, hybrid
-from mhc_tpu.models.entropy import get_model
-from mhc_tpu.ops import bitpack
-from mhc_tpu.utils import native
+from mhc import api, hybrid
+from mhc.models.entropy import get_model
+from mhc.ops import bitpack
+from mhc.utils import native
 from tests.corpus import english_like, mixed_binary
 
 pytestmark = pytest.mark.skipif(not native.available(),

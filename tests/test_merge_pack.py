@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhc_tpu.ops import bitpack, canonical, histogram, huffman
+from mhc.ops import bitpack, canonical, histogram, huffman
 
 
 def _tables(blocks, nv):
@@ -65,40 +65,3 @@ def test_merge_roundtrips_through_decoder():
         t["sorted_syms"], n_out=n, markov=True))
     out = np.concatenate([dec[i, :nv[i]] for i in range(B)]).tobytes()
     assert out == payload
-
-
-def test_fused_payload_matches_two_step():
-    """pack_blocks_to_payload (fused pack+compaction, device offsets)
-    must produce the exact dense aligned payload of pack_blocks_pallas
-    + device_compact_words (interpret mode; bit-exact on any backend)."""
-    import jax.numpy as jnp
-    from mhc_tpu.ops.kernels import encode_pallas
-
-    rng = np.random.default_rng(77)
-    R, n = 1024 + 17, 512          # ragged: forces LANES padding
-    blocks = rng.integers(0, 256, (R, n), dtype=np.uint8)
-    blocks[blocks < 170] %= 23
-    nv = rng.integers(1, n + 1, R).astype(np.int32)
-    nv[0] = n
-    t = _tables(blocks, nv)
-    prevs = np.concatenate(
-        [np.zeros((R, 1), np.int32), blocks[:, :-1].astype(np.int32)], 1)
-    codes = np.array(t["codes"])[prevs, blocks]
-    lens = np.array(t["lengths"])[prevs, blocks]
-    lens = np.where(np.arange(n)[None, :] < nv[:, None], lens, 0)
-    codes = np.where(lens > 0, codes, 0)
-
-    w, b1 = encode_pallas.pack_blocks_pallas(
-        jnp.asarray(codes), jnp.asarray(lens), interpret=True)
-    pay2, b2 = encode_pallas.pack_blocks_to_payload(
-        jnp.asarray(codes), jnp.asarray(lens), interpret=True)
-    assert (np.array(b1) == np.array(b2)).all()
-    word_lens = (np.array(b1).astype(np.int64) + 31) // 32
-    offsets = np.zeros(R + 1, np.int32)
-    np.cumsum(word_lens, out=offsets[1:])
-    pay1 = np.array(bitpack.device_compact_words(
-        w, jnp.asarray(offsets), int(offsets[-1])))
-    total = int(offsets[-1])
-    pay2 = np.array(pay2)
-    assert (pay2[:total] == pay1[:total]).all()
-    assert (pay2[total:] == 0).all()

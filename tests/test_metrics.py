@@ -4,7 +4,7 @@ import json
 
 import jax.numpy as jnp
 
-from mhc_tpu.utils import metrics
+from mhc.utils import metrics
 
 
 def test_trace_phases():

@@ -24,7 +24,7 @@ jax.distributed.initialize(coordinator_address="127.0.0.1:%(port)d",
                            num_processes=2, process_id=%(pid)d)
 import numpy as np
 from jax.sharding import Mesh
-from mhc_tpu.parallel import pipeline
+from mhc.parallel import pipeline
 from tests_corpus_stub import english_like
 
 data = english_like(96 * 1024, seed=9)
@@ -72,7 +72,7 @@ def test_two_process_mesh_matches_single_process(tmp_path):
     # compare against the single-process container
     import hashlib
 
-    from mhc_tpu import api
+    from mhc import api
     from tests.corpus import english_like
     data = english_like(96 * 1024, seed=9)
     blob_local = api.compress(data, mode="markov", block_size=16384,

@@ -4,7 +4,7 @@ full pipeline round-trips identically with either."""
 import numpy as np
 import pytest
 
-from mhc_tpu.utils import native
+from mhc.utils import native
 
 
 def _ref_join(rows, lens):
@@ -49,7 +49,7 @@ def test_empty_and_degenerate():
 
 
 def test_container_roundtrip_uses_native():
-    from mhc_tpu import api
+    from mhc import api
     from tests.corpus import english_like
     data = english_like(200_000, seed=21)
     blob = api.compress(data, mode="markov")

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from mhc_tpu import api
-from mhc_tpu.ops import huffman
-from mhc_tpu.parallel import mesh as meshmod
-from mhc_tpu.parallel import pipeline
+from mhc import api
+from mhc.ops import huffman
+from mhc.parallel import mesh as meshmod
+from mhc.parallel import pipeline
 from tests.corpus import english_like, mixed_binary
 
 
@@ -89,7 +89,7 @@ def test_rescale_jax_matches_numpy():
 
 
 def test_sharded_pallas_decode_matches_scan(mesh8):
-    """Round-3: the sharded decoder can run the Mosaic kernel per shard
+    """The sharded decoder runs the GPU decode kernel per shard
     (interpret mode on the CPU mesh) — must be byte-identical to the
     scan path and to the original input."""
     data = mixed_binary(300_000, seed=21)

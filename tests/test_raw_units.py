@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhc_tpu import api, container, engine, hybrid
-from mhc_tpu.ops import bitpack
+from mhc import api, container, engine, hybrid
+from mhc.ops import bitpack
 from tests.corpus import english_like, mixed_binary
 
 
@@ -137,7 +137,7 @@ def test_engine_container_identity_with_raw():
 def test_hybrid_container_identity_with_raw():
     """The native C++ host encoder's literal rule must match the device
     rule exactly (hybrid containers are byte-identical to api.compress)."""
-    from mhc_tpu.utils import native
+    from mhc.utils import native
     if not native.available():
         pytest.skip("native lib unavailable")
     data = _mixed_noise(500_000, seed=17)
@@ -190,18 +190,12 @@ def test_engine_order0_near_incompressible_roundtrip():
     assert engine.fetch_bytes(enc, outs) == data
 
 
-def test_engine_repacked_decode_matches(monkeypatch):
+def test_engine_repacked_decode_matches():
     """The literal-aware repacked decode (kernel sees only coded units,
     literals byte-unpacked, device gather restores order) must be
-    bit-exact vs the plain chunk loop. Runs the Mosaic kernel in
+    bit-exact vs the plain chunk loop. Runs the GPU decode kernel in
     interpret mode on CPU; chunk_units forces multiple chunks so the
     cross-chunk offset/reorder logic is exercised."""
-    import functools
-    from mhc_tpu.ops.kernels import decode_pallas
-    monkeypatch.setattr(
-        decode_pallas, "decode_blocks_pallas",
-        functools.partial(decode_pallas.decode_blocks_pallas,
-                          interpret=True))
     data = _mixed_noise(400_000, seed=23)
     st = engine.stage(data, mode="huffman", decode_unit=2048,
                       chunk_units=64)
@@ -211,7 +205,9 @@ def test_engine_repacked_decode_matches(monkeypatch):
     wl_all = (enc.bit_lens + 31) // 32
     raw_all = bitpack.raw_unit_mask(wl_all * 4, nv_all, True)
     assert raw_all.any() and not raw_all.all()
-    outs = engine.decode(enc, decode_method="pallas")
+    outs = engine.decode(enc, decode_method="pallas", interpret=True)
+    assert engine.fetch_bytes(enc, outs) == data
+    outs = engine.decode(enc, decode_method="scan")
     assert engine.fetch_bytes(enc, outs) == data
 
 

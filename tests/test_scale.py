@@ -13,8 +13,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 from bench import make_corpus  # noqa: E402
-from mhc_tpu import api  # noqa: E402
-from mhc_tpu.parallel import mesh as meshmod, pipeline  # noqa: E402
+from mhc import api  # noqa: E402
+from mhc.parallel import mesh as meshmod, pipeline  # noqa: E402
 
 SCALE_MB = int(os.environ.get("MHC_SCALE_MB", "100"))
 

@@ -1,22 +1,18 @@
 """Serving daemon: in-process HTTP roundtrip + error paths."""
 
-import threading
 import urllib.request
 import urllib.error
-from http.server import ThreadingHTTPServer
 
 import pytest
 
-from mhc_tpu import serve
+from mhc import serve
 from tests.corpus import english_like
 
 
 @pytest.fixture(scope="module")
 def server():
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
-    t = threading.Thread(target=srv.serve_forever, daemon=True)
-    t.start()
-    yield f"http://127.0.0.1:{srv.server_port}"
+    srv, url = serve.start()
+    yield url
     srv.shutdown()
 
 
@@ -50,9 +46,9 @@ def test_stats_and_health(server):
 
 
 def test_decompress_uses_platform_default_and_reports_rate(server):
-    """Round-3: /decompress with no ?method must follow the platform
-    default (pallas on TPU, scan on CPU) instead of hard-coded scan,
-    and every codec response carries a throughput header."""
+    """/decompress with no ?method must follow the platform rule
+    (config.decode_method) instead of a hard-coded decoder, and every
+    codec response carries a throughput header."""
     data = english_like(30_000, seed=56)
     blob = _post(server + "/compress?mode=markov&block_size=4096", data)
     req = urllib.request.Request(server + "/decompress", data=blob,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mhc_tpu import api, container
+from mhc import api, container
 from tests.corpus import english_like, mixed_binary
 
 
@@ -65,7 +65,7 @@ def test_ragged_tail_single_unit():
 
 def test_index_pack_unpack_inverse():
     import numpy as np
-    from mhc_tpu import container as C
+    from mhc import container as C
     rng = np.random.default_rng(3)
     for lens in [rng.integers(0, 4000, 1000), np.full(64, 257),
                  np.array([0]), np.array([65535]), rng.integers(0, 2, 500)]:
@@ -78,7 +78,7 @@ def test_index_pack_unpack_inverse():
 
 def test_table_serialize_parse_inverse():
     import numpy as np
-    from mhc_tpu import container as C
+    from mhc import container as C
     rng = np.random.default_rng(4)
     lens0 = rng.integers(0, 16, 256).astype(np.uint8)
     raw = C.serialize_tables(C.MODE_ORDER0, lens0)
